@@ -1,17 +1,17 @@
-"""DOTs-SOCP-TPU: TPU-native dynamic optimal transport on triangulated surfaces.
+"""DOTs-SOCP-TPU: dynamic optimal transport on triangulated surfaces, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the SOCP (second-order cone
+A from-scratch JAX/XLA re-architecture of the SOCP (second-order cone
 programming) reformulation of dynamic optimal transport (Benamou-Brenier) on
 discrete triangulated surfaces, solved with an inexact semi-proximal augmented
 Lagrangian method (iALM).
 
 Capability parity target: chlhnu/DOTs-SOCP (reference `dot_surface_socp/__init__.py`),
-re-designed TPU-first:
+re-designed for one accelerator program per chunk of iterations:
 
   * The per-iteration hot loop (space-time Laplacian solve, batched SOC
     projections, closed-form q/lambda step, multiplier ascent) is a single
     fused XLA computation dispatched in multi-iteration chunks.
-  * The spatial Laplacian solves ride the MXU through a generalized
+  * The spatial Laplacian solves run as dense matmuls through a generalized
     eigendecomposition (two large GEMMs per solve) instead of per-shift sparse
     LU factorizations; a matrix-free preconditioned-CG path covers meshes too
     large for the dense spectral factor.

@@ -1,7 +1,7 @@
 """Command-line interface.
 
 Same flags, defaults and groups as the reference CLI (`cli.py:27-156`), plus
-TPU-specific extras (--precision, --laplacian_mode). Run as
+solver extras (--precision, --laplacian_mode, --phi_refine, ...). Run as
 ``python -m dots_socp_tpu.cli --example plane --n_space 40``.
 """
 
@@ -92,8 +92,8 @@ def parse_args(parser=None, return_parser=False):
         "--precision",
         default=None,
         choices=["float32", "float64"],
-        help="Solver dtype (default: float32 on TPU, float64 when JAX x64 "
-        "is enabled)",
+        help="Solver dtype (default: float64 when JAX x64 is enabled, "
+        "else float32)",
     )
     algo_group.add_argument(
         "--laplacian_mode",
@@ -107,8 +107,8 @@ def parse_args(parser=None, return_parser=False):
         default="auto",
         choices=["auto", "on", "off"],
         help="Mixed-precision phi: f64 state.phi + f64 iterative refinement "
-        "around the f32 inner CG (auto: on for the unsharded float32 CG "
-        "path, where the f32 true-residual floor blocks tight tolerances)",
+        "around the f32 inner CG (auto: on for the float32 CG path, where "
+        "the f32 true-residual floor blocks tight tolerances)",
     )
 
     output_group = parser.add_argument_group("Output options")
@@ -177,7 +177,7 @@ def parse_args(parser=None, return_parser=False):
         "--mesh_shape",
         default=None,
         type=str,
-        help="Device mesh as TxS (e.g. 2x4) or a bare chip count S "
+        help="Device mesh as TxS (e.g. 2x4) or a bare device count S "
         "(= 1xS, pure spatial sharding); default: single device",
     )
     dist_group.add_argument(
@@ -263,9 +263,9 @@ def parse_args(parser=None, return_parser=False):
         "--pad_multiple",
         type=int,
         default=None,
-        help="Pad vertex/triangle counts to this multiple (default: TPU "
-        "sublane alignment). Bucketing meshes to shared padded shapes lets "
-        "a sweep reuse one compiled graph across examples",
+        help="Pad vertex/triangle counts to this multiple (default: 1, no "
+        "padding). Bucketing meshes to shared padded shapes lets a sweep "
+        "reuse one compiled graph across examples",
     )
     exp_group.add_argument(
         "--max_dense_vertices",

@@ -2,7 +2,7 @@
 
 Produces the same geometric quantities as the reference's per-triangle Python
 loops (`utils/surface_pre_computations_socp.py:11-132`) but fully vectorized,
-and in the layouts the TPU operators want:
+and in the layouts the device operators want:
 
   * `triangle_quantities`: areas (F,), corner angles (F,3), and P1 hat-basis
     gradients (F,3,3) via the normal-cross-opposite-edge identity
@@ -103,7 +103,7 @@ def build_incidence_table(triangles: np.ndarray, n_vertices: int):
 
     On device, a vertex reduction of corner-slot data x (..., F, 3) becomes
     ``(x.reshape(..., 3F)[..., table] * mask).sum(-1)`` -- a gather + masked
-    sum, which maps to the VPU far better than a scatter-add.
+    sum: no scatter-add, so no atomics and a deterministic summation order.
     """
     flat_v = triangles.reshape(-1)  # vertex id of slot f*3+k
     order = np.argsort(flat_v, kind="stable")

@@ -115,8 +115,8 @@ _KEY_MAPPING = {
     "laplacian_mode": "laplacian_mode",
     "snapshot_path": "snapshot_path",
     "snapshot_every": "snapshot_every",
-    # TPU shape controls: bucketing meshes to shared padded shapes lets a
-    # sweep reuse one compiled graph across examples (see replication/sweep.py).
+    # Shape controls: bucketing meshes to shared padded shapes lets a sweep
+    # reuse one compiled graph across examples (see replication/sweep.py).
     "pad_multiple": "pad_multiple",
     "max_dense_vertices": "max_dense_vertices",
     "sigma_freeze_error": "sigma_freeze_error",
@@ -219,7 +219,7 @@ def run_dot_surface(opts, solver=None, solver_name=None):
     if profile_dir:
         # Device trace of the whole solve (compile + dispatches + kernels);
         # extends the reference's host step timers (SURVEY 5.1) with the
-        # TPU-side timeline. View with TensorBoard / xprof.
+        # device-side timeline. View with TensorBoard / xprof.
         import jax
 
         with jax.profiler.trace(profile_dir):
@@ -370,7 +370,16 @@ def run_dot_surface_versus_exact(
                     "time": checkpoint["time"],
                 }
             )
-        from dots_socp_tpu.utils.tables import export_table_from_checkpoints_error
+        try:  # pandas renders the table; the errors above need nothing more
+            from dots_socp_tpu.utils.tables import (
+                export_table_from_checkpoints_error,
+            )
+        except ImportError as exc:
+            logging.warning(f"Skipping the checkpoint error table: {exc}")
+            return (
+                solution, geometry, run_history, error_transportation,
+                error_checkpoints,
+            )
 
         algo_name = solver_name if solver_name else solver.__name__ if solver else "socp"
         out_table = Path(

@@ -1,4 +1,4 @@
-"""Space-time Laplacian inverse, TPU-native.
+"""Space-time Laplacian inverse on the accelerator.
 
 The phi-step solves (L_time (x) diag(av) + I (x) L_space) phi = rhs on the
 (T+1, V) grid. Like the reference (`utils/laplacian_inverse_socp.py:11-62`)
@@ -14,7 +14,7 @@ so every shifted solve (L_space + (lam_a - eps) diag(av)) x = b becomes
     x = av^{-1/2} Q diag(1/(lam_a - eps - w)) Q^T av^{-1/2} b,
 
 i.e. two (T+1, V) x (V, V) GEMMs per iteration: exact, batched over all
-time shifts at once, and MXU-bound. Zero denominators (the joint constant
+time shifts at once, and matmul-bound. Zero denominators (the joint constant
 null space when eps = 0) are pseudo-inverted to 0, which pins phi's free
 constant instead of letting it drift.
 
@@ -25,7 +25,6 @@ meshes, using L x = div(area * grad(x)) as the SpMV.
 
 from __future__ import annotations
 
-import logging
 from functools import partial
 from typing import NamedTuple
 
@@ -34,7 +33,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from dots_socp_tpu.ops.mesh_ops import SurfaceOps, laplacian_apply
-from dots_socp_tpu.ops.pallas_spmv import window_matvec
 
 
 def build_time_laplacian(n_time: int, stepsize_time: float) -> np.ndarray:
@@ -84,11 +82,10 @@ def build_spectral_factor(
     ----------
     av : (V,) vertex areas (area_vertices / 3)
     lap_space : scipy sparse or dense (V, V) cotan Laplacian (negative SD)
-    use_host_eigh : force LAPACK eigh on host (default True: XLA's
-        device eigh is an iterative QR sweep that compiles and runs orders
-        of magnitude slower than LAPACK for this one-time V x V factor --
-        measured 386 s on-device vs 9 s host at V=2048 -- and the result
-        is then shipped to the device once).
+    use_host_eigh : LAPACK eigh on the host (default True), with an on-disk
+        cache, and the factor shipped to the device once. False runs
+        `jnp.linalg.eigh` on the device instead; its speed on the GPU for
+        this one-time V x V factor is not measured yet.
     """
     lap_time = build_time_laplacian(n_time, stepsize_time)
     lam_t, u_time = np.linalg.eigh(lap_time)  # lam_t <= 0 ascending
@@ -177,18 +174,18 @@ def _spectral_eigh_cached(lap_space, av, c, dtype, min_cache_v: int = 4096):
     return w, q
 
 
-def spectral_solve(factor: SpectralFactor, rhs):
+def spectral_solve(factor: SpectralFactor, rhs, precision=jax.lax.Precision.HIGHEST):
     """Apply the space-time Laplacian pseudo-inverse to rhs (T+1, V).
 
-    Two small time-transform GEMMs + two (T+1,V)x(V,V) GEMMs; everything
-    rides the MXU. Mirrors reference `laplacian_inverse_socp.py:52-61`.
+    Two small time-transform GEMMs + two (T+1,V)x(V,V) GEMMs. Mirrors
+    reference `laplacian_inverse_socp.py:52-61`.
 
-    Explicit HIGHEST matmul precision: bf16 MXU passes on these GEMMs put a
-    ~1e-3 relative-error floor under phi and stall KKT convergence near 1e-2,
-    regardless of the global precision default.
+    precision : explicit HIGHEST by default, whatever the global default.
+        A lower precision runs float32 GEMMs in TF32 on the GPU, which keeps
+        ~3 decimal digits; `chip_smoke.py` measures the error that leaves
+        on phi against a float64 direct solve.
     """
-    hi = jax.lax.Precision.HIGHEST
-    mm = partial(jnp.matmul, precision=hi)
+    mm = partial(jnp.matmul, precision=precision)
     y = mm(factor.u_time.T, rhs)  # time transform
     y = y * factor.s[None, :]
     coef = mm(y, factor.q)
@@ -234,15 +231,6 @@ class CGOperator(NamedTuple):
     rtol: jnp.ndarray
     ell_idx: jnp.ndarray
     ell_w: jnp.ndarray
-    # Optional `pallas_spmv.WindowOperator`: RCM-windowed dense tiles +
-    # permuted preconditioner arrays for the Pallas MXU SpMV kernel (built
-    # on the TPU backend in float32; None elsewhere -> ELL fallback).
-    window: object = None
-    # Optional `sharded_window.ShardedWindow`: per-shard window tiles +
-    # exchange codes running the same kernel under shard_map on a
-    # space-sharded problem (built instead of `window` when shard_parts is
-    # given; None -> halo/incidence fallback).
-    swindow: object = None
     # Optional float64 leaves for mixed-precision iterative refinement
     # (`refine=True` at build): the f64 TRUE-residual matvec around the f32
     # inner CG. None disables refinement.
@@ -396,11 +384,7 @@ def build_cg_operator(
     dtype=jnp.float32,
     deflation_k: int = 64,
     rtol: float = 1e-6,
-    use_pallas_spmv: bool | None = None,
-    spmv_tile_rows: int | None = None,  # None: auto {256, 512} by traffic
     refine: bool = False,
-    coords=None,
-    shard_parts: int | None = None,
 ) -> CGOperator:
     """Set up the matrix-free CG solver for meshes too large to densify.
 
@@ -411,14 +395,6 @@ def build_cg_operator(
         (-L, diag(av)) are shared by ALL T+1 shifted systems, so one
         low-rank term accelerates the whole batch -- it is exactly the
         ill-conditioned tail that plain Jacobi cannot see.
-    use_pallas_spmv : build the windowed Pallas SpMV operator for the CG
-        matvec. None = auto: on the TPU backend when the inner CG runs in
-        float32 -- either dtype=float32 or any dtype with `refine` (the
-        refinement's inner correction solves always run f32). The kernel is
-        single-device; the sharded path keeps the halo/incidence matvec.
-    spmv_tile_rows : output rows per Pallas kernel tile (None = auto).
-    coords : optional (V, 3) vertex coordinates; enables the spatial-sort
-        ordering candidate in `build_window_tiles`.
     refine : attach float64 operator leaves enabling mixed-precision
         iterative refinement in `cg_solve`. Finite-precision CG cannot push
         the TRUE residual ||b - A x|| below ~eps * ||A|| ||x|| no matter how
@@ -426,7 +402,7 @@ def build_cg_operator(
         is eps32/h^2 ~ 2e-3 relative -- above the 1e-4 outer tolerance
         (measured: the tight-CG control stalled at 1.7e-3 exactly like the
         adaptive run). Refinement restores f64-level true residuals while
-        every inner CG iteration keeps running f32 on the Pallas kernel.
+        every inner CG iteration keeps running in f32.
     """
     lap_time = build_time_laplacian(n_time, stepsize_time)
     lam_t, u_time = np.linalg.eigh(lap_time)
@@ -470,70 +446,6 @@ def build_cg_operator(
 
     ell_idx, ell_w = _ell_arrays(lap_space)
 
-    if use_pallas_spmv is None:
-        # The kernel computes in f32; it serves dtype=float32 directly and
-        # any dtype under refinement (the inner correction solves are f32).
-        use_pallas_spmv = (
-            dtype == jnp.float32 or refine
-        ) and jax.default_backend() == "tpu"
-    window = None
-    swindow = None
-    if n_time + 1 > 128:
-        use_pallas_spmv = False  # T+1 modes must fit the kernel's lanes
-    if use_pallas_spmv and shard_parts and hasattr(lap_space, "diagonal"):
-        # Space-sharded problem (blocked layout): per-shard window tiles
-        # running the same kernel under shard_map (`ops.sharded_window`).
-        from dots_socp_tpu.ops.sharded_window import (
-            ShardedWindow,
-            build_sharded_window,
-        )
-
-        built = build_sharded_window(
-            lap_space,
-            av.shape[0] // shard_parts,
-            shard_parts,
-            av=av,
-            jacobi=jacobi,
-            s_vec=1.0 / np.sqrt(av),
-            defl_q=q,
-            real=real,
-            tile_rows=spmv_tile_rows,
-        )
-        if built is not None:
-            sw, _meta = built
-            swindow = ShardedWindow(*(jnp.asarray(leaf) for leaf in sw))
-    elif use_pallas_spmv and hasattr(lap_space, "diagonal"):
-        from dots_socp_tpu.ops.pallas_spmv import (
-            WindowOperator,
-            build_window_tiles,
-        )
-
-        built = build_window_tiles(
-            lap_space, tile_rows=spmv_tile_rows, coords=coords
-        )
-        if built is not None:
-            a_tiles, starts, sub_off, ws, perm, iperm, win_meta = built
-            logging.getLogger(__name__).info(
-                "window SpMV: ordering=%(ordering)s TV=%(tile_rows)d "
-                "W=%(width)d G=%(group)d Ws=%(super_width)d "
-                "traffic=%(traffic_bytes)d B/matvec", win_meta
-            )
-            window = WindowOperator(
-                a_tiles=jnp.asarray(a_tiles),
-                starts=jnp.asarray(starts),
-                sub_off=jnp.asarray(sub_off),
-                ws_marker=jnp.zeros((ws,), dtype=jnp.int8),
-                perm=jnp.asarray(perm),
-                iperm=jnp.asarray(iperm),
-                # The kernel computes in f32; its companion preconditioner
-                # leaves match the f32 inner-CG work dtype even when the
-                # operator's own dtype is f64 (refined f64 solves).
-                av_p=jnp.asarray(av[perm], dtype=jnp.float32),
-                jacobi_p=jnp.asarray(jacobi[:, perm], dtype=jnp.float32),
-                s_p=jnp.asarray(1.0 / np.sqrt(av[perm]), dtype=jnp.float32),
-                defl_q_p=jnp.asarray(q[perm], dtype=jnp.float32),
-            )
-
     hi = {}
     if refine:
         # f64 leaves only exist when x64 is on (else they silently downcast
@@ -558,8 +470,6 @@ def build_cg_operator(
         rtol=jnp.asarray(rtol, dtype=dtype),
         ell_idx=jnp.asarray(ell_idx),
         ell_w=jnp.asarray(ell_w, dtype=dtype),
-        window=window,
-        swindow=swindow,
         real_mask=jnp.asarray(real, dtype=dtype),
         **hi,
     )
@@ -569,10 +479,9 @@ def _ell_arrays(lap_space):
     """Padded-ELL (indices, values) of the sparse (V, V) cotan Laplacian.
 
     Rows are padded to the max vertex degree + 1 with (own-index, 0.0)
-    entries, so the SpMV is a fixed-width gather + mul-sum -- dense VPU
-    work with no scatter, the TPU-shaped form of the reference's CSR SpMV
-    (`utils/laplacian_inverse_socp.py` delegates to SuperLU; here CG owns
-    the hot loop and the SpMV *is* the roofline).
+    entries, so the SpMV is a fixed-width gather + mul-sum with no scatter
+    (the reference's `utils/laplacian_inverse_socp.py` delegates to
+    SuperLU; here CG owns the hot loop and the SpMV *is* the roofline).
     """
     import scipy.sparse as sp
 
@@ -594,10 +503,8 @@ def ell_matvec(op: CGOperator, x, weights=None):
     """L_space @ x for (..., V) x, via the padded-ELL gather form.
 
     The gather runs in vertex-major layout: moving V to the front makes
-    each gathered element a contiguous (lead...,) row (T+1 lanes wide)
-    instead of a single lane element -- TPU gathers move whole 128-byte
-    sublane rows, so row gathers run near memory speed while lane-element
-    gathers crawl.
+    each gathered element a contiguous (lead...,) row -- T+1 = 32 f32
+    values are one 128-byte row -- instead of a single strided element.
 
     weights : override for `op.ell_w` (the refinement path passes the f64
         copy so the true-residual matvec carries f64 matrix entries).
@@ -614,8 +521,8 @@ class BandedOperator(NamedTuple):
 
     After a reverse-Cuthill-McKee reordering the matrix bandwidth drops to
     O(sqrt V); padding it to (2*w_blocks+1) block diagonals of 128x128
-    dense tiles turns the SpMV into a handful of shifted batched matmuls
-    on the MXU, shared across all T+1 time shifts:
+    dense tiles turns the SpMV into a handful of shifted batched matmuls,
+    shared across all T+1 time shifts:
 
         y_i = sum_d  A[d, i] @ x_{i+d-w},   A[d] : (nb, 128, 128)
 
@@ -669,7 +576,7 @@ def build_banded_operator(
 
 def banded_matvec(op: BandedOperator, x):
     """L_space @ x for (..., V) x via shifted block-diagonal batched
-    matmuls -- dense MXU work, no gathers (the two permutations are
+    matmuls -- dense matmul work, no gathers (the two permutations are
     row-contiguous takes)."""
     vp = op.perm.shape[0]
     v = x.shape[-1]
@@ -729,7 +636,7 @@ def cg_solve(
     (-L, diag(av)): with u_i = av^{-1/2} q_i, A_a u_i ~ (w_i - shift_a)
     diag(av) u_i, so M^-1 = J^-1 + S Q diag(1/(w - shift_a)) Q^T S (SPD,
     congruent form) collapses the slow low-frequency tail for every shift
-    at once; the two thin (T+1,V)x(V,k) GEMMs per iteration ride the MXU.
+    at once, at the cost of two thin (T+1,V)x(V,k) GEMMs per iteration.
 
     Stopping is PER SHIFT: each of the T+1 systems terminates against its
     own ||b_a|| (an aggregate criterion would let a dominant-norm shift
@@ -751,8 +658,8 @@ def cg_solve(
     (`build_cg_operator(refine=True)`) and the work dtype is narrower than
     f64, the solve runs classic iterative refinement -- the TRUE residual
     r = b - A x is evaluated in f64 (x and the accumulated solution held in
-    f64), and each correction is solved by the f32 inner CG below (window
-    kernel / ELL). Finite-precision CG floors the true residual at
+    f64), and each correction is solved by the f32 inner CG below.
+    Finite-precision CG floors the true residual at
     ~eps_work * ||A|| ||x|| regardless of the recursive-residual tolerance;
     each refinement pass shrinks the correction norm, so the floor drops
     geometrically (~eps32 * cond(A) per pass) until the f64 target is met.
@@ -771,53 +678,22 @@ def cg_solve(
     use_refine = op.ell_w_hi is not None and (
         not sharded_space or ops_hi is not None
     )
-    # The refinement's inner correction solves always run in f32 (every
-    # inner iteration rides the f32 window kernel) -- including for f64
-    # rhs, where refinement restores full f64 true-residual accuracy
-    # around them. Without refinement the solve runs in the rhs dtype.
+    # The refinement's inner correction solves always run in f32 --
+    # including for f64 rhs, where refinement restores full f64
+    # true-residual accuracy around them. Without refinement the solve runs
+    # in the rhs dtype.
     work = jnp.float32 if use_refine else rhs.dtype
 
-    # The Pallas window kernel runs the CG loop in permuted vertex order
-    # (permuting once at entry/exit instead of gathering every matvec); the
-    # preconditioner arrays come pre-permuted, f32, on the operator. On a
-    # space-sharded problem the per-shard variant (`op.swindow`) runs the
-    # same kernel under shard_map in shard-local window order.
-    wop = op.window
-    use_window = (
-        wop is not None
-        and halo is None
-        and not space_sharded
-        and work == jnp.float32
-    )
-    swop = op.swindow
-    use_swindow = (
-        swop is not None
-        and halo is not None
-        and mesh_axes is not None
-        and work == jnp.float32
-    )
-    if use_window:
-        jacobi, defl_q, s_vec, av_vec = (
-            wop.jacobi_p, wop.defl_q_p, wop.s_p, wop.av_p,
-        )
-    elif use_swindow:
-        jacobi, defl_q, s_vec, av_vec = (
-            swop.jacobi_p, swop.defl_q_p, swop.s_p, swop.av_p,
-        )
-    else:
-        jacobi, defl_q, s_vec, av_vec = (
-            op.jacobi.astype(work),
-            op.defl_q.astype(work),
-            op.s.astype(work),
-            ops.av.astype(work),
-        )
+    jacobi = op.jacobi.astype(work)
+    defl_q = op.defl_q.astype(work)
+    s_vec = op.s.astype(work)
+    av_vec = ops.av.astype(work)
     shifts_w = op.shifts.astype(work)
     defl_winv_w = op.defl_winv.astype(work)
     ell_w_work = op.ell_w.astype(work)
 
     # Real-vertex mask (padding slots excluded from the null-space
-    # projection; see `CGOperator.real_mask`). Sums/means over it are
-    # invariant under the RCM permutation.
+    # projection; see `CGOperator.real_mask`).
     real = (
         op.real_mask
         if op.real_mask is not None
@@ -838,18 +714,7 @@ def cg_solve(
         return jnp.where(nr > 0, v * rm[None, :], v)
 
     def matvec(x):
-        if use_window:
-            # Zero-gather MXU SpMV over RCM-windowed dense tiles.
-            lap = window_matvec(wop, x)
-        elif use_swindow:
-            # Per-shard window tiles under shard_map: one boundary-sized
-            # all-gather, then the same kernel on each shard's rows.
-            from dots_socp_tpu.ops.sharded_window import (
-                sharded_window_matvec,
-            )
-
-            lap = sharded_window_matvec(swop, mesh_axes, x)
-        elif halo is None and not space_sharded:
+        if halo is None and not space_sharded:
             # Padded-ELL SpMV: one fixed-width neighbor gather per vertex.
             # ~3x less HBM traffic than composing div(area * grad(x))
             # through the (T+1, F, 3) corner-slot intermediates. Weights in
@@ -886,41 +751,16 @@ def cg_solve(
         b_norm_row = (b * b).sum(axis=1, keepdims=True)  # (T+1, 1)
         return tol * tol * jnp.maximum(b_norm_row, b_norm_row.mean())
 
-    null_w = op.null_row.astype(work)
-    if use_window:
-        real_w = real[wop.perm].astype(work)
-    elif use_swindow:
-        real_w = swop.real_p.astype(work)
-    else:
-        real_w = real.astype(work)
-    n_real_w = n_real.astype(work)
-
     def pcg_core(b, x, thresh):
-        """Inner PCG in the work dtype; b/x in eigenbasis, original order.
+        """Inner PCG in the work dtype; b/x in eigenbasis.
         Frozen (converged) rows keep p and rz unchanged so they resume
         consistently if re-activated; beta = 0 there avoids rz_new/rz ~ 1
         blowing p up. The singular (shift ~ 0) row is re-deflated every
-        iteration: matvec rounding (espec. the f32 window kernel at tiny
-        refinement-correction scales) injects null-space components that
-        CG cannot reduce and that eventually drive p^T A p negative --
-        measured breakdown to NaN at inner iteration ~43 without this.
-        (The row mean is permutation-invariant, so deflating in permuted
-        order is exact.)"""
-        if use_window:
-            b = b[:, wop.perm]
-            x = x[:, wop.perm]
-        elif use_swindow:
-            from dots_socp_tpu.ops.sharded_window import window_permute
-
-            b = window_permute(swop, mesh_axes, b)
-            x = window_permute(swop, mesh_axes, x)
-
-        def dfl(v):
-            mean = (v * real_w[None, :]).sum(axis=1, keepdims=True) / n_real_w
-            v = v - null_w[:, None] * mean
-            return jnp.where(null_w[:, None] > 0, v * real_w[None, :], v)
-
-        r = dfl(b - matvec(x))
+        iteration: f32 matvec rounding at tiny refinement-correction scales
+        injects null-space components that CG cannot reduce and that
+        eventually drive p^T A p negative -- measured breakdown to NaN at
+        inner iteration ~43 without this."""
+        r = deflate(b - matvec(x))
         z = precond(r)
         p = z
         rz = (r * z).sum(axis=1, keepdims=True)
@@ -939,7 +779,7 @@ def cg_solve(
             step = active & (den > 0)
             alpha = jnp.where(step, rz / jnp.maximum(den, 1e-30), 0.0)
             x = x + alpha * p
-            r = dfl(r - alpha * ap)
+            r = deflate(r - alpha * ap)
             z = precond(r)
             rz_new = (r * z).sum(axis=1, keepdims=True)
             beta = jnp.where(step, rz_new / jnp.maximum(rz, 1e-30), 0.0)
@@ -953,12 +793,6 @@ def cg_solve(
             return jnp.logical_and(it < max_iters, jnp.any(res_row > thresh))
 
         x, _, _, _, iters = jax.lax.while_loop(cond, body, (x, r, p, rz, 0))
-        if use_window:
-            x = x[:, wop.iperm]
-        elif use_swindow:
-            from dots_socp_tpu.ops.sharded_window import window_permute
-
-            x = window_permute(swop, mesh_axes, x, inverse=True)
         return x, iters
 
     if not use_refine:
@@ -971,19 +805,8 @@ def cg_solve(
     # ---- mixed-precision iterative refinement ------------------------------
     f64 = jnp.float64
     ut = op.u_time_hi
-    if jax.default_backend() == "tpu":
-        # Emulated-f64 matmuls cost ~21 ms/apply at V=195k; the
-        # double-float transform keeps eps32^2-grade accuracy on f32 VPU
-        # ops (`ops.df64.small_matmul_df64`).
-        from dots_socp_tpu.ops.df64 import small_matmul_df64 as _tmul
-    else:
-        _tmul = lambda m, v: m @ v
-    b64 = deflate(-_tmul(ut.T, rhs.astype(f64)))
-    x64 = (
-        jnp.zeros_like(b64)
-        if x0 is None
-        else deflate(_tmul(ut.T, x0.astype(f64)))
-    )
+    b64 = deflate(-(ut.T @ rhs.astype(f64)))
+    x64 = jnp.zeros_like(b64) if x0 is None else deflate(ut.T @ x0.astype(f64))
     thresh64 = row_thresh(b64, rtol.astype(f64))
     thresh_w = thresh64.astype(work)
 
@@ -995,15 +818,6 @@ def cg_solve(
             # incidence composition div(area_f * grad(x)) equals the
             # assembled f64 cotan matrix to rounding.
             lap = laplacian_apply(ops_hi, x, halo, mesh_axes, (None,))
-        elif jax.default_backend() == "tpu":
-            # No native f64 on TPU: the emulated-f64 ELL matvec measured
-            # ~80 ms/pass at V=195k (80% of the whole iALM iteration went
-            # to the refinement's fixed cost). The double-float (two-f32)
-            # evaluation delivers ~eps32^2-grade residuals on the fast f32
-            # VPU instead (`ops.df64`; parity-tested to 1e-14 vs f64).
-            from dots_socp_tpu.ops.df64 import shifted_matvec_df64
-
-            return shifted_matvec_df64(op, x)
         else:
             lap = ell_matvec(op, x, weights=op.ell_w_hi)
         return -(lap + op.shifts_hi[:, None] * op.av_hi[None, :] * x)
@@ -1044,5 +858,5 @@ def cg_solve(
     x64, iters, _, _ = jax.lax.while_loop(
         cond, body, (x64, jnp.asarray(0, jnp.int32), jnp.int32(0), False)
     )
-    x = _tmul(ut, deflate(x64))
+    x = ut @ deflate(x64)
     return (x, iters) if return_iters else x

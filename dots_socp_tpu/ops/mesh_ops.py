@@ -1,12 +1,12 @@
 """Surface calculus on device: gradient, divergence, vertex reductions.
 
-TPU-first replacements for the reference's SciPy sparse matrices
+Device replacements for the reference's SciPy sparse matrices
 (`surface_pre_computations_socp.py:42-132`, applied at
 `socp/solver_socp.py:898-921,1004-1025`):
 
-  * gradient  = gather of the 3 corner values + a 3-term VPU mul-sum
+  * gradient  = gather of the 3 corner values + a 3-term elementwise mul-sum
   * divergence / triangle->vertex maps = gather through a padded incidence
-    table + masked sum (scatter-free, so the VPU stays dense)
+    table + masked sum (scatter-free: no atomics, deterministic sums)
   * cotan-Laplacian SpMV = div(area * grad), matrix-free (used by the CG
     fallback path and by tests)
 
@@ -109,10 +109,10 @@ def grad_space(ops: SurfaceOps, phi, halo=None, mesh_axes=None, lead=()):
     grad(phi)|_f = sum_k phi[tri[f,k]] * grad_basis[f,k].
 
     Written as broadcast-multiply + 3-term sum rather than einsum: the
-    contraction axis is only 3 wide, and XLA lowers the einsum to a dilated
-    convolution that costs ~0.5 ms/iteration more than plain VPU work at
-    V~5k (and inherits the global HIGHEST matmul precision's multi-pass
-    cost for no accuracy gain -- the VPU sum is already full f32).
+    contraction axis is only 3 wide, so an einsum would become a dot with a
+    tiny contraction that XLA fuses less well than elementwise work, and
+    would inherit the global HIGHEST matmul precision for no accuracy gain
+    (the elementwise sum is already full f32).
     """
     corners = vertex_gather(ops, phi, halo, mesh_axes, lead)  # (..., F, 3corner)
     return (corners[..., :, None] * ops.grad_basis).sum(axis=-2)
@@ -123,7 +123,7 @@ def div_space(ops: SurfaceOps, m, halo=None, mesh_axes=None, lead=()):
     (..., F, 3) -> (..., V).
 
     div(m)[v] = -sum_{(f,k): tri[f,k]=v} <grad_basis[f,k], m[f]>.
-    (Same VPU mul-sum form as grad_space, for the same reason.)
+    (Same elementwise mul-sum form as grad_space, for the same reason.)
     """
     contrib = -(m[..., None, :] * ops.grad_basis).sum(axis=-1)
     return vertex_reduce(ops, contrib, halo, mesh_axes, lead)

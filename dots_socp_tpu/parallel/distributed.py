@@ -1,14 +1,14 @@
 """Multi-process / multi-chip runtime initialization (SURVEY.md section 5.8).
 
-The reference is single-process with no distributed backend; this module is
-the first-class TPU-native replacement: `jax.distributed.initialize` for
+The reference is single-process with no distributed backend; this module
+adds one: `jax.distributed.initialize` for
 multi-host runs plus a tiny mesh-shape grammar so the CLI can place the
 solver on a ("time", "space") device mesh without writing Python.
 
 Typical usage:
 
-  single host, all local chips     : --mesh_shape 1x8   (or just "8")
-  2 hosts x 4 chips, co-shard time : --mesh_shape 2x4 --num_processes 2
+  single host, all local GPUs      : --mesh_shape 1x4   (or just "4")
+  2 hosts x 4 GPUs, co-shard time  : --mesh_shape 2x4 --num_processes 2
                                      --process_id {0,1}
                                      --coordinator_address host0:1234
 
@@ -37,8 +37,8 @@ def initialize_distributed(
     """Bring up the JAX distributed runtime (idempotent).
 
     With all arguments None, relies on auto-detection from the cluster
-    environment (TPU pod metadata / SLURM / Open MPI env vars), which is a
-    no-op on a single host. Explicit arguments follow
+    environment (COORDINATOR_ADDRESS / SLURM / Open MPI env vars), which is
+    a no-op on a single host. Explicit arguments follow
     `jax.distributed.initialize` semantics.
     """
     global _initialized
@@ -51,7 +51,6 @@ def initialize_distributed(
             "COORDINATOR_ADDRESS",
             "SLURM_JOB_ID",
             "OMPI_COMM_WORLD_SIZE",
-            "TPU_WORKER_HOSTNAMES",
         )
     )
     if not explicit and not auto_env:

@@ -112,30 +112,6 @@ def problem_shardings(mesh: Mesh, data: ProblemData) -> ProblemData:
         )
     cg_op = None
     if data.cg_op is not None:
-        # The Pallas window operator is single-device only (build_problem
-        # disables it when sharding); replicate defensively if present.
-        window_sh = None
-        if data.cg_op.window is not None:
-            window_sh = jax.tree.map(lambda _: rep, data.cg_op.window)
-        swindow_sh = None
-        if data.cg_op.swindow is not None:
-            from dots_socp_tpu.ops.sharded_window import ShardedWindow
-
-            swindow_sh = ShardedWindow(
-                a_tiles=s("space", None, None),
-                starts=s("space", None),
-                sub_off=s("space", None),
-                exp_codes=s("space", None),
-                win_codes=s("space", None),
-                state_in=s("space", None),
-                state_out=s("space", None),
-                ws_marker=rep,
-                av_p=s("space"),
-                jacobi_p=s(None, "space"),
-                s_p=s("space"),
-                defl_q_p=s("space", None),
-                real_p=s("space"),
-            )
         opt = lambda leaf, sh: sh if leaf is not None else None
         cg_op = CGOperator(
             shifts=rep,
@@ -153,8 +129,6 @@ def problem_shardings(mesh: Mesh, data: ProblemData) -> ProblemData:
             # all-gather of x (the blocked-layout/halo path avoids this).
             ell_idx=s("space", None),
             ell_w=s("space", None),
-            window=window_sh,
-            swindow=swindow_sh,
             # f64 refinement leaves (present when phi_refine engaged).
             ell_w_hi=opt(data.cg_op.ell_w_hi, s("space", None)),
             av_hi=opt(data.cg_op.av_hi, s("space")),

@@ -90,8 +90,8 @@ def blocked_layout(
 ) -> BlockedLayout:
     """Compute the blocked layout and halo tables for `n_parts` space shards.
 
-    lane : per-shard chunk sizes are rounded up to this multiple (TPU
-        sublane alignment of every shard's slice).
+    lane : per-shard chunk sizes are rounded up to this multiple (keeps
+        every shard's slice aligned to 8 elements).
     """
     triangles = np.asarray(triangles, dtype=np.int32)
     n_tri = triangles.shape[0]

@@ -3,7 +3,8 @@
 The reference evaluates these lazily through a circular-queue validator with
 early exit (`utils/condition_validator.py`,`socp/solver_socp.py:589-652`) --
 worthwhile when each residual costs a fresh pass of NumPy temporaries. Fused
-on TPU, all seven together cost about one iteration, and validation runs only
+into one device computation, all seven together cost a few state-sized
+passes (not measured on the GPU yet), and validation runs only
 every `interval` iterations (adaptive cadence, host side), so we always
 compute the full dual-valued set:
 

@@ -33,9 +33,9 @@ class ProblemConfig:
     """Static (hashable) solver configuration; changing any field recompiles.
 
     n_vertices / n_triangles are the PADDED sizes (array shapes); the _real
-    fields track the actual mesh for slicing results back. Padding keeps the
-    lane dimension aligned for the TPU and sharded dimensions divisible
-    across the device mesh; dummy entries carry zero area / zero basis and
+    fields track the actual mesh for slicing results back. Padding keeps
+    sharded dimensions divisible across the device mesh and lets meshes
+    share bucketed shapes; dummy entries carry zero area / zero basis and
     stay identically at their fixed point (see `_pad_problem_arrays`).
     """
 
@@ -108,6 +108,16 @@ class ProblemData(NamedTuple):
     ops_hi: Optional[SurfaceOps] = None
 
 
+def host_device():
+    """The host CPU device on which problem assembly runs, or None (the
+    default device) when JAX was started without a CPU backend, as under
+    JAX_PLATFORMS=cuda. Use as `jax.default_device(host_device())`."""
+    try:
+        return jax.local_devices(backend="cpu")[0]
+    except RuntimeError:
+        return None
+
+
 def _round_up(x: int, multiple: int) -> int:
     return -(-x // multiple) * multiple
 
@@ -134,8 +144,8 @@ def build_problem(
         Dummy vertices carry mean vertex area, zero density and no incident
         real triangles; dummy triangles carry zero area/basis and reference
         a dummy vertex, so the padded entries remain exactly at their fixed
-        point throughout the solve. Padding serves both TPU lane alignment
-        and divisibility for sharding over a device mesh.
+        point throughout the solve. Padding serves divisibility for
+        sharding over a device mesh and shape bucketing across meshes.
     space_partitions : number of space shards. With > 1, vertices and
         triangles are re-ordered into BFS-blocked per-shard chunks
         (`parallel.partition.blocked_layout`, replacing pad_multiple) and
@@ -144,10 +154,15 @@ def build_problem(
         entities are reported in extras["vertex_slot"/"triangle_slot"].
     mesh_axes : (time, space) device-mesh axis sizes, stored on the config
         to route the mesh ops (`ProblemConfig.spmd_kwargs`).
+    max_dense_vertices : largest padded vertex count that takes the dense
+        spectral factor. Its (V, V) eigenvector matrix costs 4 V^2 bytes in
+        f32 (1 GiB at the default 16384); larger meshes take the matrix-free
+        CG path. The crossover has not been raced on the GPU yet.
     phi_refine : "auto" | True | False -- mixed-precision phi (f64 state.phi
         + f64 iterative refinement around the f32 inner CG). auto enables it
         exactly where the f32 true-residual floor (~eps32/h^2) blocks
-        convergence: the float32 CG path on an unsharded problem.
+        convergence: the float32 CG path, sharded or not. A float64 CG
+        solve runs plain f64 CG.
 
     Returns
     -------
@@ -175,7 +190,7 @@ def build_problem(
     halo = None
     if space_partitions > 1:
         # Blocked shard-local layout: real entities scattered into per-shard
-        # chunks (replaces pad_multiple; each chunk is lane-aligned).
+        # chunks (replaces pad_multiple).
         from dots_socp_tpu.parallel.halo import HaloTables
         from dots_socp_tpu.parallel.partition import blocked_layout
 
@@ -249,50 +264,24 @@ def build_problem(
 
     spectral = None
     cg_op = None
-    sharded = mesh_axes is not None and max(mesh_axes) > 1
     if phi_refine in ("auto", None):
         # f32: refinement restores the f64-grade solve accuracy large-mesh
         # convergence needs -- sharded or not (the sharded path carries the
-        # f64 true residual through the halo/incidence matvec). f64 on TPU:
-        # refinement keeps every inner CG iteration on the fast f32 window
-        # kernel (emulated-f64 arithmetic only touches the once-per-pass
-        # true residual); f64 on CPU keeps the plain f64 CG (tests,
-        # goldens).
-        phi_refine = laplacian_mode == "cg" and (
-            dtype == "float32" or jax.default_backend() == "tpu"
-        )
+        # f64 true residual through the halo/incidence matvec). f64 keeps
+        # the plain native-f64 CG.
+        phi_refine = laplacian_mode == "cg" and dtype == "float32"
     elif phi_refine in ("on", "off"):
         phi_refine = phi_refine == "on"
     phi_refine = bool(phi_refine) and laplacian_mode == "cg"
     if laplacian_mode == "spectral":
         spectral = build_spectral_factor(n_time, dt, av_p, lap, eps=eps, dtype=jdtype)
     elif laplacian_mode == "cg":
-        # Window SpMV auto-selection: single-device window kernel on an
-        # unsharded TPU problem; the per-shard variant (shard_parts) on a
-        # space-sharded one; ELL for time-only sharding (the global kernel
-        # is a single-device program).
         if cg_deflation_k is None:
             # Mesh-Laplacian eigenvalues grow ~linearly with index, so
             # deflating k modes cuts the Jacobi-CG condition number ~V/k:
             # scale k with the mesh (capped by the cost of the two thin
             # (T+1,V)x(V,k) preconditioner GEMMs per CG iteration).
             cg_deflation_k = int(min(256, max(64, v_pad // 256)))
-        coords_p = None
-        if space_partitions == 1:
-            # Padded vertex coordinates enable the spatial-sort window
-            # ordering candidate (dummy vertices sit at the centroid; their
-            # Laplacian rows are empty so their placement is free).
-            coords_p = np.concatenate(
-                [
-                    vertices,
-                    np.broadcast_to(
-                        vertices.mean(axis=0, keepdims=True)
-                        if n_vertices
-                        else np.zeros((1, vertices.shape[1])),
-                        (v_pad - n_vertices, vertices.shape[1]),
-                    ),
-                ]
-            )
         cg_op = build_cg_operator(
             n_time,
             dt,
@@ -302,12 +291,7 @@ def build_problem(
             dtype=jdtype,
             deflation_k=cg_deflation_k,
             rtol=cg_rtol,
-            use_pallas_spmv=(
-                False if (sharded and space_partitions == 1) else None
-            ),
             refine=phi_refine,
-            coords=coords_p,
-            shard_parts=space_partitions if space_partitions > 1 else None,
         )
     else:
         raise ValueError(f"unknown laplacian_mode: {laplacian_mode}")

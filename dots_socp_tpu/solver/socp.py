@@ -3,7 +3,7 @@
 Same contract as the reference solver (`socp/solver_socp.py:25-871`):
 ``solver_socp(n_time, geometry, **kw) -> (SolutionSocpData, RunningHistory)``
 with identical defaults, schedules and stopping semantics. The execution
-model differs TPU-first:
+model differs, built around one accelerator program per chunk:
 
   * iterations run on device in multi-iteration chunks (`step.run_chunk`);
     the host plans chunk boundaries so they land exactly on the iterations
@@ -35,7 +35,7 @@ from dots_socp_tpu.ops.time_stencils import grad_time
 from dots_socp_tpu.ops.mesh_ops import grad_space
 from dots_socp_tpu.ops.time_stencils import decouple_space_adjoint
 from dots_socp_tpu.solver.kkt import compute_kkt, objective_functional
-from dots_socp_tpu.solver.problem import build_problem
+from dots_socp_tpu.solver.problem import build_problem, host_device
 from dots_socp_tpu.solver.scaling import (
     apply_penalty_factor,
     apply_prim_dual_scale,
@@ -137,7 +137,7 @@ def solver_socp(
 ):
     """Solve the SOCP reformulation of DOT on a discrete surface.
 
-    Parameters mirror the reference solver; TPU-specific extras:
+    Parameters mirror the reference solver; accelerator-specific extras:
 
     precision : "float32" | "float64" | None
         None picks float64 when JAX x64 is enabled, else float32.
@@ -155,13 +155,12 @@ def solver_socp(
     max_chunk : int
         Upper bound on iterations dispatched per device call (bounds the
         granularity of the time_limit check). Each dispatch pays one
-        host<->device round trip, which dominates when the device sits
-        behind a high-latency link; one device iteration is ~0.1 ms at
-        V~5k, so 512 iterations/dispatch keeps latency amortized while
-        still checking time_limit several times a minute.
+        host<->device round trip and one host sync; 512 iterations per
+        dispatch amortizes it while still checking time_limit between
+        dispatches.
     pad_multiple : int | None
-        Pad vertex/triangle counts to this multiple (None: 8 on TPU for
-        sublane alignment, or the mesh "space" axis size when sharding).
+        Pad vertex/triangle counts to this multiple (None: 1, raised to a
+        multiple of the mesh "space" axis size when sharding).
     mesh : jax.sharding.Mesh | None
         Shard state and operators over this ("time", "space") device mesh;
         XLA inserts the collectives. None = single device.
@@ -186,15 +185,15 @@ def solver_socp(
         parity).
     phi_refine : "auto" | True | False
         Mixed-precision phi: carry state.phi in float64 and solve the phi
-        system by f64 iterative refinement around the f32 inner CG (the
-        Pallas window kernel keeps doing every inner iteration). Fixes the
+        system by f64 iterative refinement around the f32 inner CG (every
+        inner iteration stays in f32). Fixes the
         float32 true-residual floor eps32 * cond(L) ~ eps32/h^2, which at
         V >= 46k sits at ~2e-3 -- above tol=1e-4 -- and stalls KKT dual
         feasibility there regardless of the CG tolerance (the round-3
         tight-CG control measured exactly this). auto = on for every f32 CG
         path (sharded runs carry the f64 true residual through the
-        halo/incidence matvec -- `ProblemData.ops_hi`), plus f64 CG on the
-        TPU backend. The reference needs no analogue:
+        halo/incidence matvec -- `ProblemData.ops_hi`); f64 CG runs plain
+        native-f64 CG. The reference needs no analogue:
         it is float64 throughout with exact SuperLU solves
         (`socp/solver_socp.py:276-299`, `utils/laplacian_inverse_socp.py:34-59`).
     """
@@ -226,23 +225,25 @@ def solver_socp(
 
     # --- problem assembly ---------------------------------------------------
     # With a space-sharded mesh the layout is BFS-blocked per shard
-    # (space_partitions replaces pad_multiple, each chunk lane-aligned);
-    # otherwise pad for TPU sublane alignment only.
+    # (space_partitions replaces pad_multiple); otherwise no padding unless
+    # asked for.
     mesh_axes = None
     space_size = 1
     if mesh is not None:
         space_size = mesh.shape.get("space", 1)
         mesh_axes = (mesh.shape.get("time", 1), space_size)
     if pad_multiple is None:
-        pad_multiple = 8 if jax.default_backend() == "tpu" else 1
+        pad_multiple = 1
     if mesh is not None and space_size > 1 and pad_multiple % space_size != 0:
         pad_multiple *= space_size  # only reached when space_partitions == 1
 
-    # Setup runs on the host CPU backend: it is a swarm of tiny ops, each of
-    # which would otherwise pay a compile + dispatch round trip to the
-    # accelerator; the finished pytrees transfer to the device once below.
+    # Setup runs on the host CPU backend when there is one: it is a swarm of
+    # tiny ops, each of which would otherwise pay a compile + dispatch to
+    # the accelerator; the finished pytrees transfer to the device once
+    # below. Without a CPU backend (JAX_PLATFORMS=cuda) it runs on the
+    # default device.
     t_setup = time.perf_counter()
-    cpu0 = jax.local_devices(backend="cpu")[0]
+    cpu0 = host_device()
     cg_rtol_adaptive = cg_rtol is None
     cg_rtol_floor = 1e-12 if precision == "float64" else 2e-6
     sigma_freeze = (

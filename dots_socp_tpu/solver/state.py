@@ -17,7 +17,7 @@ class SolverState(NamedTuple):
     """Primal/dual state + scaling scalars.
 
     Shapes: T = n_time, V vertices, F triangles. The decoupled cone arrays
-    use the TPU layout (T, 2, F, 3corner, 3coord); see
+    use the device layout (T, 2, F, 3corner, 3coord); see
     `ops.time_stencils.decouple_space`.
     """
 

@@ -5,8 +5,8 @@ Re-implementation of the reference's `RunningHistory`
 "Time of steps" / "Total Time" / "Total Iteration" / "The kkt errors at end" /
 "Other history at end" log blocks are machine-parsed by the replication
 table generator (`replication/log2table.py:98-106`), so labels and number
-formats are preserved exactly. Timing on TPU wraps chunk dispatches with
-block_until_ready at the call sites.
+formats are preserved exactly. Timing on the accelerator wraps chunk
+dispatches with a host fetch or block_until_ready at the call sites.
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ class RunningHistory:
         )
 
     def add_step_time(self, tag: str, seconds: float):
-        """Accumulate step time measured externally (chunked TPU dispatch)."""
+        """Accumulate step time measured externally (chunked device dispatch)."""
         self.steps_time[tag] = self.steps_time.get(tag, 0.0) + seconds
 
     # ---- recording ---------------------------------------------------------

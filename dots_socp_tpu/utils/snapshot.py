@@ -1,7 +1,7 @@
 """Periodic on-disk snapshot / resume of the solver state.
 
 The reference's only resume mechanism is the in-memory warm start
-(`socp/solver_socp.py:38,239-250`); TPU runs are longer-lived, so this adds
+(`socp/solver_socp.py:38,239-250`); large-mesh runs are long-lived, so this adds
 a crash-safe periodic snapshot of the full state pytree *plus* the host-side
 schedule state (sigma cadence, adaptive-KKT cadence, converged mask), so a
 resumed run continues the exact trajectory instead of restarting schedules.

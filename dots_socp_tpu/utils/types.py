@@ -10,10 +10,9 @@ boundary.
 
 from __future__ import annotations
 
-from typing import Optional, TypedDict
+from typing import NotRequired, Optional, TypedDict
 
 import numpy as np
-from typing_extensions import NotRequired
 
 
 class GeometryData(TypedDict, total=True):

@@ -1,8 +1,8 @@
 """In-process replication sweep: every example x congestion level.
 
 The reference Makefile runs one Python process per (example, congestion)
-pair (`Makefile:56-91`); on TPU that would pay a fresh XLA compile per
-mesh shape per process. This driver instead:
+pair (`Makefile:56-91`); on an accelerator that would pay a fresh XLA
+compile per mesh shape per process. This driver instead:
 
   * pads all meshes into shared shape buckets (--pad_multiple, default
     4096), so the 14 surrogate meshes collapse into 3 padded shapes and

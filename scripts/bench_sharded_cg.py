@@ -1,20 +1,12 @@
 """Measure the SPACE-SHARDED large-mesh CG path on a virtual device mesh.
 
-Three layouts of one full CG phi-solve:
+Two layouts of one full CG phi-solve:
 
   (a) halo_blocked : BFS-blocked layout, halo-exchange incidence matvec
-  (b) swindow_blocked : BFS-blocked layout, per-shard Pallas window kernel
-      (`ops.sharded_window`; interpret mode on CPU -- the collective-bytes
-      audit and the host-side traffic accounting are the layout truth,
-      virtual-mesh wall time only bounds relative cost)
-  (c) gspmd_raw : raw-order GSPMD layout (partitionable incidence form)
+  (b) gspmd_raw : raw-order GSPMD layout (partitionable incidence form)
 
-plus the per-matvec HBM matrix-traffic accounting of the sharded window
-tiles against the single-device window kernel on the same mesh: per-chip
-time is ~traffic/HBM-bandwidth on this bandwidth-bound op, so
-traffic_single / max_shard_traffic is the expected kernel-side speedup of
-an S-chip solve (per-shard extended-RCM windows are ~sqrt(S)x NARROWER
-than the global window, so the sharded tiles also move fewer total bytes).
+The compiled program's collective bytes per solve are the layout truth;
+virtual-mesh wall time only bounds relative cost.
 
 Runs on CPU with XLA_FLAGS=--xla_force_host_platform_device_count=N
 (set by this script before importing jax).
@@ -53,8 +45,6 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    import numpy as np
-
     from dots_socp_tpu.data.loader import load_example
     from dots_socp_tpu.geometry.normalize import normalize_geometry
     from dots_socp_tpu.ops.laplacian import cg_solve
@@ -92,9 +82,6 @@ def main():
         ("halo_blocked",
          dict(space_partitions=args.n_devices, pad_multiple=1,
               mesh_axes=(1, args.n_devices))),
-        ("swindow_blocked",
-         dict(space_partitions=args.n_devices, pad_multiple=1,
-              mesh_axes=(1, args.n_devices))),
         ("gspmd_raw",
          dict(space_partitions=1, pad_multiple=8 * args.n_devices,
               mesh_axes=(1, args.n_devices))),
@@ -103,32 +90,6 @@ def main():
             args.ntime, geometry, dtype="float32", laplacian_mode="cg",
             cg_rtol=args.cg_rtol, **kwargs,
         )
-        if label == "swindow_blocked":
-            # Auto only builds the kernel on the TPU backend; force it for
-            # the virtual-mesh audit (same operator otherwise).
-            from dots_socp_tpu.geometry.surface import (
-                cotan_laplacian,
-                triangle_quantities,
-            )
-            from dots_socp_tpu.ops.laplacian import build_cg_operator
-
-            vtx = np.asarray(geometry["vertices"])
-            tri = np.asarray(geometry["triangles"])
-            _, angles, _ = triangle_quantities(vtx, tri)
-            lap_p = cotan_laplacian(
-                extras["vertex_slot"][tri], angles, config.n_vertices
-            )
-            op = build_cg_operator(
-                args.ntime, config.stepsize_time,
-                np.asarray(data.ops.av, np.float64), lap_p,
-                rtol=args.cg_rtol, use_pallas_spmv=True,
-                shard_parts=args.n_devices, refine=config.phi_refine,
-                deflation_k=int(min(256, max(64, config.n_vertices // 256))),
-            )
-            if op.swindow is None:
-                print(json.dumps({label: "sharded window build rejected"}))
-                continue
-            data = data._replace(cg_op=op)
         dt = config.stepsize_time
         ops = data.ops
         state = init_state(
@@ -178,51 +139,6 @@ def main():
         }
         print(json.dumps({label: results[label]}), flush=True)
 
-    # ---- kernel traffic accounting: sharded vs single-device window ------
-    from dots_socp_tpu.geometry.surface import (
-        cotan_laplacian,
-        triangle_quantities,
-    )
-    from dots_socp_tpu.ops.pallas_spmv import build_window_tiles
-    from dots_socp_tpu.ops.sharded_window import build_sharded_window
-    from dots_socp_tpu.parallel.partition import blocked_layout
-
-    vtx = np.asarray(geometry["vertices"])
-    tri = np.asarray(geometry["triangles"])
-    area_f, angles, _ = triangle_quantities(vtx, tri)
-    v_real = vtx.shape[0]
-    lap_single = cotan_laplacian(tri, angles, v_real)
-    single = build_window_tiles(lap_single, coords=vtx)
-    traffic = {}
-    if single is not None:
-        traffic["single_device"] = single[6]
-    layout = blocked_layout(tri, v_real, args.n_devices)
-    v_pad = args.n_devices * layout.v_chunk
-    lap_blocked = cotan_laplacian(
-        layout.vertex_slot[tri].astype(np.int64), angles, v_pad
-    )
-    from dots_socp_tpu.geometry.surface import vertex_areas
-
-    av_r = vertex_areas(tri, area_f, v_real) / 3.0
-    av_b = np.full(v_pad, av_r.mean())
-    av_b[layout.vertex_slot] = av_r
-    dummy = np.zeros(v_pad)
-    built = build_sharded_window(
-        lap_blocked, layout.v_chunk, args.n_devices, av=av_b,
-        jacobi=np.zeros((args.ntime + 1, v_pad)), s_vec=av_b,
-        defl_q=np.zeros((v_pad, 0)), real=dummy,
-    )
-    if built is not None:
-        traffic["sharded"] = built[1]
-        if single is not None:
-            t1 = single[6]["traffic_bytes"]
-            ts = built[1]["traffic_bytes"]
-            per_shard = ts / args.n_devices
-            traffic["kernel_speedup_vs_single"] = round(t1 / per_shard, 2)
-            traffic["total_traffic_ratio_sharded_vs_single"] = round(
-                ts / t1, 3
-            )
-
     halo = results["halo_blocked"]["collective_bytes_per_cg_solve"]
     raw = results["gspmd_raw"]["collective_bytes_per_cg_solve"]
     print(
@@ -234,8 +150,7 @@ def main():
                 ),
                 "layouts": results,
                 "halo_vs_raw_collective_bytes": round(halo / max(raw, 1), 4),
-                "window_traffic": traffic,
-            }
+                }
         ),
         flush=True,
     )

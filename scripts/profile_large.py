@@ -1,17 +1,14 @@
 """Attribute the per-iteration cost of the large-mesh CG+refine solve.
 
-Round-3 verdict: at V=46k the solve sustained ~194 ms/it with only
-~7-11 ms attributable to the CG matvecs, and no trace was ever captured --
-the kernel work risked optimizing the wrong op. This driver times each
-component of the fused iteration ON THE CHIP as dependent chains in single
-dispatches (differenced, so dispatch round trips cancel), plus the phi
-solve at a grid of inner tolerances, and (optionally) captures a
-jax.profiler trace of the production chunk.
+This driver times each component of the fused iteration on the device as
+dependent chains in single dispatches (warmed up, timed to
+block_until_ready), and (optionally) captures a jax.profiler trace of the
+production chunk.
 
 Components (see solver/step.py::iteration):
   iteration       the whole fused iALM step (the production unit)
   laplacian_rhs   RHS assembly (div_time + div_space of weighted residuals)
-  cg_solve        step 1a phi solve: refine pass(es) around the f32 window CG
+  cg_solve        step 1a phi solve: refine pass(es) around the f32 ELL CG
   proj_soc        step 1b batched SOC projection over (T,2,3,F,3)
   q_dual          steps 2-3: gradients, closed-form q/lambda, dual ascent
   kkt_table       the fused 7-residual dual-valued KKT table
@@ -49,7 +46,7 @@ def main():
                     "fixed-iteration-count solves at max_iters 5 vs 30 "
                     "(unreachable rtol) and difference")
     ap.add_argument("--f64_solve_race", action="store_true",
-                    help="also time the f64 phi solve: refined (f32 window "
+                    help="also time the f64 phi solve: refined (f32 ELL "
                     "inner CG) vs plain all-f64 ELL CG")
     args = ap.parse_args()
 
@@ -68,12 +65,13 @@ def main():
     )
     from dots_socp_tpu.ops.mesh_ops import grad_space
     from dots_socp_tpu.ops.time_stencils import grad_time
+    from dots_socp_tpu.solver.problem import host_device
 
     build_kw = {}
     if args.cg_deflation_k is not None:
         build_kw["cg_deflation_k"] = args.cg_deflation_k
     config, data, state = graft._build(
-        args.n_space, args.ntime, "float32", pad_multiple=8, **build_kw
+        args.n_space, args.ntime, "float32", **build_kw
     )
     if args.cg_rtol is not None and data.cg_op is not None:
         data = data._replace(
@@ -85,25 +83,17 @@ def main():
 
     def timed_chain(fn, label, iters=None):
         """Time `iters` dependent applications of fn(state)->state in one
-        dispatch, differenced against a 1-application dispatch."""
+        warmed-up dispatch."""
         iters = iters or args.iters
 
         @jax.jit
         def chain(d, s, n):
             return jax.lax.fori_loop(0, n, lambda _, x: fn(d, x), s)
 
-        def fetch(s):
-            return np.asarray(s.phi)[0, 0]
-
-        fetch(chain(data, state, np.int32(1)))
-        fetch(chain(data, state, np.int32(1 + iters)))
+        jax.block_until_ready(chain(data, state, np.int32(iters)))
         t0 = time.perf_counter()
-        fetch(chain(data, state, np.int32(1)))
-        t1 = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        fetch(chain(data, state, np.int32(1 + iters)))
-        t2 = time.perf_counter() - t0
-        ms = (t2 - t1) / iters * 1e3
+        jax.block_until_ready(chain(data, state, np.int32(iters)))
+        ms = (time.perf_counter() - t0) / iters * 1e3
         print(f"  {label:14s}: {ms:8.2f} ms", flush=True)
         return round(ms, 3)
 
@@ -226,20 +216,19 @@ def main():
         ops64 = None
         race = {}
         for name, kw in (
-            ("refined_f32_window", dict(refine=True)),
-            ("plain_f64_ell", dict(refine=False, use_pallas_spmv=False)),
+            ("refined_f32_ell", dict(refine=True)),
+            ("plain_f64_ell", dict(refine=False)),
         ):
-            with jax.default_device(jax.devices("cpu")[0]):
+            with jax.default_device(host_device()):
                 op = build_cg_operator(
                     args.ntime, config.stepsize_time, av, lap,
-                    dtype=jnp.float64, deflation_k=128, rtol=1e-8,
-                    coords=vtx, **kw,
+                    dtype=jnp.float64, deflation_k=128, rtol=1e-8, **kw,
                 )
             op = jax.device_put(op, jax.devices()[0])
             from dots_socp_tpu.ops.mesh_ops import build_surface_ops
 
             if ops64 is None:
-                with jax.default_device(jax.devices("cpu")[0]):
+                with jax.default_device(host_device()):
                     ops64 = build_surface_ops(vtx, tri, dtype=jnp.float64)
                 ops64 = jax.device_put(ops64, jax.devices()[0])
 

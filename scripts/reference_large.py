@@ -2,7 +2,7 @@
 Laplacian solves) to establish the ground-truth convergence behavior for
 the V=46k configuration.
 
-Our TPU solve of plane n200 plateaus with KKT prim(q)/dual(alpha)
+Our solve of plane n200 plateaus with KKT prim(q)/dual(alpha)
 oscillating in the 1e-3..1e-2 band under the sigma limit cycle; this run
 answers whether the reference algorithm itself (float64 + SuperLU exact
 inner solves, `dot_surface_socp/socp/solver_socp.py`) descends past that

@@ -95,11 +95,8 @@ def test_refined_cg_beats_f32_true_residual_floor(cg_problem):
 
 def test_refined_f64_rhs_matches_plain_f64_cg(cg_problem):
     """f64 rhs on a refine-enabled operator runs the refined path (f32
-    inner corrections -- on TPU these ride the window kernel -- wrapped in
-    f64 true-residual refinement) and must reach the same f64-grade
-    accuracy as a plain all-f64 CG. This is the fast path for
-    `--precision float64` large-mesh runs, where emulated-f64 arithmetic
-    only touches the once-per-pass true residual."""
+    inner corrections wrapped in f64 true-residual refinement) and must
+    reach the same f64-grade accuracy as a plain all-f64 CG."""
     n_time, av, lap, ops, rhs = cg_problem
     rtol = 1e-9
     rhs64 = jnp.asarray(np.asarray(rhs), dtype=jnp.float64)

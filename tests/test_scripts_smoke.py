@@ -76,8 +76,8 @@ def test_bench_matvec_smoke():
         [
             os.path.join(SCRIPTS, "bench_matvec.py"),
             "--n_space", "12", "--n_time", "4", "--iters", "3",
-            # banded+pallas build fine on CPU but the chain timing loop is
-            # what matters here; keep the smoke fast by racing two variants.
+            # the chain timing loop is what matters here; keep the smoke
+            # fast by racing two variants.
             "--skip", "banded",
         ]
     )
@@ -113,7 +113,7 @@ def test_profile_large_smoke():
     assert "iteration_ms" in result and "cg_solve_ms" in result
     assert "f64_solve_race_ms" in result
     assert set(result["f64_solve_race_ms"]) == {
-        "refined_f32_window", "plain_f64_ell",
+        "refined_f32_ell", "plain_f64_ell",
     }
 
 
